@@ -4,7 +4,7 @@
 // tools (SURVEY.md §2.2): impg's region projection through a PAF alignment
 // (impg similarity / impg query, reference run_pica2_impg.sh:162-168,
 // run_tajd.sh:126) and povu's variant decomposition (run_tajd.sh:148) —
-// re-designed to emit the haplotype-by-site allele matrices the TPU engine
+// re-designed to emit the haplotype-by-site allele matrices the JAX engine
 // consumes directly, instead of per-window pairwise alignment products.
 //
 // Pipeline: PAF(+CIGAR, target = reference assembly) + FASTA(.fai) sequence
@@ -12,7 +12,7 @@
 // variant calls vs the reference -> union of variant keys = site axis ->
 // int8 matrix (1 = variant allele, 0 = reference allele, -1 = not covered).
 // Identity matrices / segregating sites / AFS all derive from this matrix on
-// the TPU (impop_tpu/stats/allele.py).
+// the device (impop_tpu/stats/allele.py).
 #pragma once
 
 #include <cstdint>

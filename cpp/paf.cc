@@ -195,10 +195,9 @@ bool PafIndex::try_mmap_parse(const std::string& path) {
 //
 // Binary sidecar `<paf>.impopidx` (the impg `.impg` index capability,
 // doc/where_hprc_data.md:14-26): loading it replaces the text tokenise +
-// CIGAR parse — the single largest stage of a fresh scan's setup
-// (measured 1.78 s of a 3.7 s warm 2000-window e2e wall, and paid 15x
-// by the panels-tajd/panels-hfst batch drivers which reopen one PAF per
-// panel run).  Ops pack into u32 (3-bit op code, 29-bit length — covers
+// CIGAR parse — the single largest stage of a fresh scan's setup, paid
+// once per panel by the panels-tajd/panels-hfst batch drivers which
+// reopen one PAF per panel run.  Ops pack into u32 (3-bit op code, 29-bit length — covers
 // chromosome-scale runs; longer lengths abort the save and fall back to
 // parsing).  Validated against source size + mtime(ns); version-gated.
 

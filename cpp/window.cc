@@ -4,7 +4,7 @@
 // (impg query -> odgi build/sort/view -> povu gfa2vcf, run_tajd.sh:126-148,
 // and impg similarity, run_pica2_impg.sh:162-168): a window's variation is
 // derived directly from the PAF alignments as per-haplotype variant calls
-// against the reference; the haplotype-by-site matrix then feeds every TPU
+// against the reference; the haplotype-by-site matrix then feeds every device
 // statistic (identity, pi, S, AFS) without further native calls.
 //
 // Design: extraction is RANGE-based.  extract_windows() walks each PAF

@@ -3,7 +3,7 @@
 The C++ library (cpp/) replaces the capabilities the reference consumes from
 impg / odgi / povu (SURVEY.md §2.2): PAF+CIGAR window projection over a FASTA
 sequence store, producing the haplotype-by-site allele matrices that feed the
-TPU statistics.  Binding is ctypes over a plain C ABI (pybind11 is not in
+device statistics.  Binding is ctypes over a plain C ABI (pybind11 is not in
 this environment).
 
 The library is built on demand with ``make -C cpp`` on first use.  A pure

@@ -269,7 +269,7 @@ def similarity_from_gfa(g: GfaGraph) -> Tuple[List[str], List[List[str]]]:
 
     The length-weighted multiset intersection is computed as a stack of
     binary-layer matmuls (``min(a,b) = Σ_t [a>t]·[b>t]``), so the same
-    formulation runs on the MXU for large path sets.  ``estimated.identity``
+    formulation runs as matmuls for large path sets.  ``estimated.identity``
     is the Dice coefficient ``2·∩ / (len_a + len_b)`` — the fraction of both
     paths' bases that lie on shared nodes, the graph analogue of alignment
     identity — which is what pica2 consumes downstream (pica2.py:22-27).

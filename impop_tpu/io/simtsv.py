@@ -4,7 +4,7 @@ The reference's L1 layer (impg similarity / odgi similarity) emits a TSV with
 header ``group.a  group.b  estimated.identity`` consumed row-by-row into a
 dict keyed by unordered pair (reference scripts/pica2.py:6-58,
 h-fst.py:84-119).  Here the same contract is ingested once into a dense
-symmetric matrix plus a presence mask, which is the layout every TPU estimator
+symmetric matrix plus a presence mask, which is the layout every estimator
 in :mod:`impop_tpu.stats` consumes.
 
 Row order is the sorted unique identifier order; this is also the

@@ -1,3 +1,3 @@
-from impop_tpu.ops.pairdiff import pairwise_identity_pallas, pairwise_identity_xla
+from impop_tpu.ops.panelquad import masked_pair_sums_xla
 
-__all__ = ["pairwise_identity_pallas", "pairwise_identity_xla"]
+__all__ = ["masked_pair_sums_xla"]

@@ -1,4 +1,4 @@
-"""Pallas TPU kernel: fused masked panel reductions over one window matrix.
+"""Fused masked panel reductions over one window matrix.
 
 Every per-panel/per-pair statistic in the fused scan is a row of one of two
 stacked matmuls against elementwise transforms of the window's similarity
@@ -9,113 +9,37 @@ means):
     Yp = Wp @ mask                    pair counts / presence sums
     mask = present ∧ offdiagonal
 
-The XLA formulation materialises the two [N, N] f32 operands in HBM
-(write + read each) before the dots; this kernel builds both blocks
-in-register from one read of sim/present, so per window the only [N, N]
-traffic is sim (f32) + present (int8) once.  π quadratic forms, group-pair
-presence counts, and all Hudson Fst within/cross sums are rows of Wd/Wp —
-one kernel call serves every panel and panel pair of a window.
+π quadratic forms, group-pair presence counts, and all Hudson Fst
+within/cross sums are rows of Wd/Wp — one call serves every panel and panel
+pair of a window.
 """
 from __future__ import annotations
 
-import functools
-
 import jax
 import jax.numpy as jnp
-from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
 
-__all__ = ["masked_pair_sums_pallas", "masked_pair_sums_xla"]
+__all__ = ["masked_pair_sums_xla"]
 
 
-def _kernel(sim_ref, pres_ref, wd_ref, wp_ref, yd_ref, yp_ref):
-    c = pl.program_id(0)
-    n_cap = sim_ref.shape[0]
-    block = sim_ref.shape[1]
-    row_ids = jax.lax.broadcasted_iota(jnp.int32, (n_cap, block), 0)
-    col_ids = jax.lax.broadcasted_iota(jnp.int32, (n_cap, block), 1) + c * block
-    # int8 compares are unsupported on the VPU — widen to f32 first
-    mask = (pres_ref[:].astype(jnp.float32) > 0) & (row_ids != col_ids)
-    maskf = jnp.where(mask, 1.0, 0.0)               # [N, K]
-    div = jnp.where(mask, 1.0 - sim_ref[:], 0.0)    # [N, K]
-    # HIGHEST precision: these operands carry real f32 values ((1-sim)
-    # ~1e-3, frequency weights); the MXU's default single-pass bf16 f32
-    # matmul rounded them to ~1e-3 RELATIVE error in pi/Fst (measured
-    # against a host f64 oracle on HPRC-shaped windows — r4 bisect log).
-    # The identity/grouping dots keep DEFAULT: their 0/1 operands are
-    # exact in bf16 by construction.
-    yd_ref[:] = jax.lax.dot_general(
-        wd_ref[:], div, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-    yp_ref[:] = jax.lax.dot_general(
-        wp_ref[:], maskf, dimension_numbers=(((1,), (0,)), ((), ())),
-        preferred_element_type=jnp.float32,
-        precision=jax.lax.Precision.HIGHEST,
-    )
-
-
-@functools.partial(jax.jit, static_argnames=("block",))
-def masked_pair_sums_pallas(sim, present, wd, wp, block: int = 512):
+def masked_pair_sums_xla(sim, present, wd, wp):
     """(Yd, Yp) = (wd @ ((1-sim)⊙mask), wp @ mask), mask = present ∧ offdiag.
 
     Args:
       sim:     [N, N] f32
       present: [N, N] bool
       wd, wp:  [R, N] f32 stacked row weights
-      block:   column chunk width (N must be a multiple)
     Returns:
       (yd [R, N] f32, yp [R, N] f32)
     """
-    n_cap = sim.shape[0]
-    r = wd.shape[0]
-    block = min(block, n_cap)
-    assert n_cap % block == 0
-    grid = (n_cap // block,)
-    pres_i8 = present.astype(jnp.int8)
-    yd, yp = pl.pallas_call(
-        _kernel,
-        grid=grid,
-        in_specs=[
-            pl.BlockSpec((n_cap, block), lambda c: (0, c),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((n_cap, block), lambda c: (0, c),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((r, n_cap), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((r, n_cap), lambda c: (0, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=[
-            pl.BlockSpec((r, block), lambda c: (0, c),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((r, block), lambda c: (0, c),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_shape=[
-            jax.ShapeDtypeStruct((r, n_cap), jnp.float32),
-            jax.ShapeDtypeStruct((r, n_cap), jnp.float32),
-        ],
-        cost_estimate=pl.CostEstimate(
-            flops=4 * r * n_cap * n_cap,
-            bytes_accessed=5 * n_cap * n_cap + 8 * r * n_cap,
-            transcendentals=0,
-        ),
-    )(sim, pres_i8, wd, wp)
-    return yd, yp
-
-
-def masked_pair_sums_xla(sim, present, wd, wp):
-    """XLA fallback with identical semantics (materialised operands)."""
     n_cap = sim.shape[0]
     mask = present & ~jnp.eye(n_cap, dtype=bool)
     div = jnp.where(mask, 1.0 - sim, 0.0)
     maskf = mask.astype(jnp.float32)
 
     def mm(x, m):
-        # HIGHEST: value-carrying operands (see _kernel) — on TPU the
-        # default f32 matmul is single-pass bf16
+        # HIGHEST: the operands carry real f32 values ((1-sim) ~1e-3,
+        # frequency weights); a DEFAULT f32 dot may run as TF32 on the GPU
+        # (or single-pass bf16 elsewhere), ~1e-3 relative error in π/Fst
         return jax.lax.dot_general(
             x, m, dimension_numbers=(((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,

@@ -4,8 +4,8 @@ The reference has no multi-node story (its "communication backend" is POSIX
 pipes, SURVEY.md §2.3).  Here the design is:
 
 - ``jax.distributed.initialize()`` connects the hosts; the (data, site) mesh
-  spans all devices of all hosts; GSPMD collectives ride ICI within a slice
-  and DCN across slices.
+  spans all devices of all hosts; XLA's collectives (NCCL on GPUs) ride
+  the host's interconnect within a host and the network across hosts.
 - Windows are embarrassingly parallel, so the *host-side* work (extraction,
   tile building) is partitioned by :func:`host_window_range` — each host
   loads only its contiguous slice of the window list, builds its local shard

@@ -5,8 +5,8 @@ constraint, doc/how_pi.md:40); chromosome scale means thousands of small
 windows.  Here the site axis of an allele tile is itself sharded over the
 mesh ``site`` axis: each device computes partial pairwise-difference matrices
 / segregating-site counts / AFS bins over its site slice and the partials
-merge with ``psum`` over ICI — so a single window can span the whole slice's
-HBM.  This is the blockwise-accumulation design from SURVEY.md §5
+merge with ``psum`` over the interconnect — so a single window can span
+the memory of the whole mesh.  This is the blockwise-accumulation design from SURVEY.md §5
 (long-context equivalent).
 
 Implemented with shard_map so the collective structure is explicit and

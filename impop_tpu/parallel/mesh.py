@@ -31,7 +31,7 @@ def make_mesh(
     """Build a (data, site) mesh over the available devices.
 
     ``data`` defaults to len(devices) // site.  Works identically for one
-    real TPU chip, a v5e slice, or the 8-virtual-device CPU test mesh.
+    GPU, the GPUs of a host, or the 8-virtual-device CPU test mesh.
     """
     devs = list(devices if devices is not None else jax.devices())
     if data is None:

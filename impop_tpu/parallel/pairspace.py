@@ -89,9 +89,9 @@ def pair_sharded_direct_stats(mesh, axis: str = "data"):
         b_cols = masks_b.astype(jnp.float32)
 
         def mm(w, m, hi=False):
-            # hi: div carries per-site f32 values — the TPU default
-            # matmul is single-pass bf16 (r4 bisect: ~1e-3 rel error);
-            # the 0/1 count mms stay DEFAULT (exact)
+            # hi: div carries per-site f32 values — a DEFAULT f32 dot
+            # may round them to TF32 (~1e-3 rel error); the 0/1 count
+            # mms stay DEFAULT (exact)
             return jax.lax.dot_general(
                 w, m, dimension_numbers=(((1,), (0,)), ((), ())),
                 preferred_element_type=jnp.float32,

@@ -10,7 +10,7 @@ accumulated in donated device buffers.  Per-chunk cost is O(N·Sc + N²)
 device memory regardless of the window's total length, so a single
 "window" can be an entire chromosome (the reference caps windows at
 ~10 kb, doc/how_pi.md:40; SURVEY.md §5 "long-context" names blockwise
-accumulation over site tiles as the TPU-native equivalent).
+accumulation over site tiles as the device equivalent).
 
 Every accumulated quantity is an exact integer sum over disjoint site
 chunks, so the result matches the one-shot computation on the concatenated

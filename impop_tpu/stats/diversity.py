@@ -6,7 +6,7 @@ one set, or across two sets — counting pairs with no data as "missing" and
 excluding them from the denominator.
 
 O(n²) dict loops in the reference become two masked quadratic forms
-(value sum and pair count) that XLA fuses onto the MXU, batched over windows
+(value sum and pair count) that XLA fuses into matmuls, batched over windows
 via vmap.
 """
 from __future__ import annotations
@@ -46,9 +46,9 @@ def direct_diversity(
     presf = pair_present.astype(jnp.float32)
 
     # HIGHEST precision throughout: div carries real f32 values
-    # ((1-sim) ~1e-3) and the intermediate count/sum vectors exceed bf16's
-    # 8-bit mantissa — the TPU default single-pass bf16 f32 matmul
-    # measured ~1e-3 relative error in pi/Fst (r4 bisect vs host f64)
+    # ((1-sim) ~1e-3) and the intermediate count/sum vectors exceed a
+    # bf16 or TF32 mantissa — a DEFAULT f32 dot that rounds its operands
+    # gave ~1e-3 relative error in pi/Fst against a host f64 oracle
     hi = jax.lax.Precision.HIGHEST
     if mask_b is None:
         total = jnp.dot(a, jnp.dot(div, a, preferred_element_type=jnp.float32,

@@ -4,7 +4,7 @@ The reference prototypes (wip/ehh2.py:72-86, wip/ehhgfa.py:6-21) compute
 EHH(i) = (# haplotype pairs identical on sites 0..i) / C(n, 2) with a triple
 Python loop re-comparing whole prefixes at every site — O(S²·n²).
 
-TPU formulation, two tiers:
+Device formulation, two tiers:
 
 - CURVES (ehh_forward): one lax.scan over the site axis carrying the
   [N, N] boolean "still identical" pair matrix; per step an elementwise
@@ -13,12 +13,13 @@ TPU formulation, two tiers:
 - AREAS (ehh_pair_death / ehh_area_batch): no scan at all.  The area
   under the decay curve is Σ_i EHH(i) = Σ_pairs death(pair)/C(n,2),
   where death = the first disagreeing active site — and death comes
-  straight from MXU matmuls: per 16-site block, the bit-weighted XOR sum
+  straight from matmuls: per 16-site block, the bit-weighted XOR sum
   D = (x·W)(1−x)ᵀ + ((1−x)·W)xᵀ is an exact integer < 2¹⁶ whose f32
   EXPONENT field reads back the first set bit (the same trick as
-  stats/grouping's argmin).  The r3/r4 bench scan spent ~14 ms per
-  64-window batch on the S sequential steps; this is a handful of tiny
-  Grams plus [N, N] elementwise mins.
+  stats/grouping's argmin).  Instead of S sequential scan steps this is
+  a handful of small Grams plus [N, N] elementwise mins.  The operands
+  are 0/1 indicators and powers of two <= 2^15 with f32 accumulation, so
+  the sums stay exact when a DEFAULT-precision f32 dot runs as TF32.
 """
 from __future__ import annotations
 
@@ -86,10 +87,10 @@ def ehh_pair_death(geno: jnp.ndarray, site_mask: jnp.ndarray) -> jnp.ndarray:
 
     ``geno`` must be BINARISED 0/1 (the ehh_area_batch contract, matching
     the reference's binarisation — ehhgfa.py:12-14); masked sites agree.
-    Per 16-site block the bit-weighted XOR sum is exact in f32 even under
-    the MXU's default single-pass bf16 product (operands are powers of
-    two and 0/1 indicators), and its exponent field IS the first
-    disagreeing position.
+    Per 16-site block the bit-weighted XOR sum is exact in f32 even when
+    a DEFAULT-precision dot rounds its operands to TF32 or bf16 (operands
+    are powers of two and 0/1 indicators), and its exponent field IS the
+    first disagreeing position.
     """
     n, s = geno.shape
     if s == 0:
@@ -153,105 +154,88 @@ def ehh_area_dynamic(
     Returns (area [A] f32, carriers [A] int32) for one window; vmap for
     batches.
     """
-    n, s = geno.shape
-    kb = 16
-    s_pad = ((s + kb - 1) // kb) * kb if s else kb
-    iota_s = jnp.arange(s_pad, dtype=jnp.int32)
-    fi_raw = jnp.asarray(focal_idx, jnp.int32)
-    act_row = jnp.pad(site_mask, (0, s_pad - s)).astype(jnp.float32)
-    # rank-compact the active columns (exact 0/1 matmul — no gathers)
-    rank = (jnp.cumsum(act_row) - act_row).astype(jnp.int32)     # [S]
-    n_act = jnp.sum(act_row).astype(jnp.int32)
-    perm = jnp.where(
-        (rank[:, None] == iota_s[None, :]) & (act_row[:, None] > 0),
-        1.0, 0.0)                                                # [S, S]
-    x_raw = jnp.where(site_mask, geno, 0).astype(jnp.float32)
-    x_raw = jnp.pad(x_raw, ((0, 0), (0, s_pad - s)))
-    xb = jnp.dot(x_raw, perm, preferred_element_type=jnp.float32)
-    fi = jnp.sum(act_row * (iota_s < fi_raw).astype(jnp.float32)
-                 ).astype(jnp.int32)                # focal in rank units
-    active = (iota_s < n_act).astype(jnp.float32)[None, :]
+    with jax.named_scope("ehh"):
+        n, s = geno.shape
+        kb = 16
+        s_pad = ((s + kb - 1) // kb) * kb if s else kb
+        iota_s = jnp.arange(s_pad, dtype=jnp.int32)
+        fi_raw = jnp.asarray(focal_idx, jnp.int32)
+        act_row = jnp.pad(site_mask, (0, s_pad - s)).astype(jnp.float32)
+        # rank-compact the active columns (exact 0/1 matmul — no gathers)
+        rank = (jnp.cumsum(act_row) - act_row).astype(jnp.int32)     # [S]
+        n_act = jnp.sum(act_row).astype(jnp.int32)
+        perm = jnp.where(
+            (rank[:, None] == iota_s[None, :]) & (act_row[:, None] > 0),
+            1.0, 0.0)                                                # [S, S]
+        x_raw = jnp.where(site_mask, geno, 0).astype(jnp.float32)
+        x_raw = jnp.pad(x_raw, ((0, 0), (0, s_pad - s)))
+        xb = jnp.dot(x_raw, perm, preferred_element_type=jnp.float32)
+        fi = jnp.sum(act_row * (iota_s < fi_raw).astype(jnp.float32)
+                     ).astype(jnp.int32)                # focal in rank units
+        active = (iota_s < n_act).astype(jnp.float32)[None, :]
 
-    w_desc = jnp.asarray(
-        np.exp2(np.arange(kb - 1, -1, -1, dtype=np.float64)),
-        jnp.float32)[None, :]
-    w_asc = jnp.asarray(np.exp2(np.arange(kb, dtype=np.float64)),
-                        jnp.float32)[None, :]
+        w_desc = jnp.asarray(
+            np.exp2(np.arange(kb - 1, -1, -1, dtype=np.float64)),
+            jnp.float32)[None, :]
+        w_asc = jnp.asarray(np.exp2(np.arange(kb, dtype=np.float64)),
+                            jnp.float32)[None, :]
 
-    def deaths(dir_mask, weights, pick_first):
-        """[N, N] absolute site index of the first (pick_first) or last
-        active disagreeing site under dir_mask; sentinel s (first) /
-        -1 (last)."""
-        x = xb * dir_mask
-        c = (1.0 - xb) * active * dir_mask
-        best = jnp.full((n, n), s if pick_first else -1, jnp.int32)
-        for b in range(s_pad // kb):
-            sl = slice(b * kb, (b + 1) * kb)
-            d_bits = (
-                jnp.dot(x[:, sl] * weights, c[:, sl].T,
-                        preferred_element_type=jnp.float32)
-                + jnp.dot(c[:, sl] * weights, x[:, sl].T,
-                          preferred_element_type=jnp.float32)
-            )
-            expo = (jax.lax.bitcast_convert_type(d_bits, jnp.int32)
-                    >> 23) - 127
-            if pick_first:
-                cand = jnp.where(d_bits > 0, (kb - 1) - expo + b * kb, s)
-                best = jnp.minimum(best, cand)
-            else:
-                cand = jnp.where(d_bits > 0, expo + b * kb, -1)
-                best = jnp.maximum(best, cand)
-        return best
+        def deaths(dir_mask, weights, pick_first):
+            """[N, N] absolute site index of the first (pick_first) or last
+            active disagreeing site under dir_mask; sentinel s (first) /
+            -1 (last)."""
+            x = xb * dir_mask
+            c = (1.0 - xb) * active * dir_mask
+            best = jnp.full((n, n), s if pick_first else -1, jnp.int32)
+            for b in range(s_pad // kb):
+                sl = slice(b * kb, (b + 1) * kb)
+                d_bits = (
+                    jnp.dot(x[:, sl] * weights, c[:, sl].T,
+                            preferred_element_type=jnp.float32)
+                    + jnp.dot(c[:, sl] * weights, x[:, sl].T,
+                              preferred_element_type=jnp.float32)
+                )
+                expo = (jax.lax.bitcast_convert_type(d_bits, jnp.int32)
+                        >> 23) - 127
+                if pick_first:
+                    cand = jnp.where(d_bits > 0, (kb - 1) - expo + b * kb, s)
+                    best = jnp.minimum(best, cand)
+                else:
+                    cand = jnp.where(d_bits > 0, expo + b * kb, -1)
+                    best = jnp.maximum(best, cand)
+            return best
 
-    # carriers read the RAW focal column — ehh_area_batch applies no site
-    # mask to the carrier selection (only the decay Grams mask sites)
-    focal_oh = (jnp.arange(s, dtype=jnp.int32) == fi_raw
-                ).astype(jnp.float32)
-    call = jnp.dot(geno.astype(jnp.float32), focal_oh,
-                   preferred_element_type=jnp.float32)
-    carriers = [member & (call == float(al)) for al in alleles]
-    n_cs = [jnp.sum(c.astype(jnp.float32)) for c in carriers]
-    denoms = [jnp.maximum(nc * (nc - 1.0) * 0.5, 1.0) for nc in n_cs]
-    carr = jnp.stack([jnp.sum(c.astype(jnp.int32)) for c in carriers])
+        # carriers read the RAW focal column — ehh_area_batch applies no site
+        # mask to the carrier selection (only the decay Grams mask sites)
+        focal_oh = (jnp.arange(s, dtype=jnp.int32) == fi_raw
+                    ).astype(jnp.float32)
+        call = jnp.dot(geno.astype(jnp.float32), focal_oh,
+                       preferred_element_type=jnp.float32)
+        carriers = [member & (call == float(al)) for al in alleles]
+        n_cs = [jnp.sum(c.astype(jnp.float32)) for c in carriers]
+        denoms = [jnp.maximum(nc * (nc - 1.0) * 0.5, 1.0) for nc in n_cs]
+        carr = jnp.stack([jnp.sum(c.astype(jnp.int32)) for c in carriers])
 
-    # On TPU the whole death/steps/pair-sum computation runs as one
-    # VMEM-resident Mosaic kernel (ops/ehhdeath.py): the XLA block loop
-    # below carries [N, N] intermediates through HBM — vmapped over a
-    # scan batch that measured 198 µs/window (bench ehh_fused r5).
-    # Step sums are integer-exact in f32 (< 2^24) so both backends agree
-    # bit-for-bit.
-    if (jax.default_backend() not in ("cpu",) and n % 128 == 0):
-        from impop_tpu.ops.ehhdeath import ehh_area_pallas
+        right_mask = (iota_s > fi).astype(jnp.float32)[None, :]
+        left_mask = (iota_s < fi).astype(jnp.float32)[None, :]
+        death_r = deaths(right_mask, w_desc, True)       # first disagree > fi
+        death_l = deaths(left_mask, w_asc, False)        # last disagree < fi
 
-        s128 = ((s_pad + 127) // 128) * 128
-        xp = jnp.pad(xb, ((0, 0), (0, s128 - s_pad)))
-        carr_f = jnp.stack([c.astype(jnp.float32) for c in carriers])
-        sums = ehh_area_pallas(xp, carr_f, fi.astype(jnp.float32),
-                               n_act.astype(jnp.float32),
-                               a_count=len(carriers))
-        areas = [sums[i] / denoms[i] for i in range(len(carriers))]
+        # per-pair step counts (clamped at 0 so fi at the window edge and the
+        # agree-all sentinels behave like ehh_area_batch's empty-suffix cases;
+        # the right sentinel clamps to the ACTIVE count, not the padded cap)
+        steps_r = jnp.maximum(
+            jnp.minimum(death_r, n_act).astype(jnp.float32) - fi - 1.0, 0.0)
+        steps_l = jnp.maximum(fi - 1.0 - death_l.astype(jnp.float32), 0.0)
+        steps = steps_r + steps_l
+
+        areas = []
+        upper = jnp.triu(jnp.ones((n, n), dtype=bool), k=1)
+        for ai, al in enumerate(alleles):
+            pairs = upper & carriers[ai][:, None] & carriers[ai][None, :]
+            rows = jnp.sum(jnp.where(pairs, steps, 0.0), axis=1)
+            areas.append(jnp.sum(rows) / denoms[ai])
         return jnp.stack(areas), carr
-
-    right_mask = (iota_s > fi).astype(jnp.float32)[None, :]
-    left_mask = (iota_s < fi).astype(jnp.float32)[None, :]
-    death_r = deaths(right_mask, w_desc, True)       # first disagree > fi
-    death_l = deaths(left_mask, w_asc, False)        # last disagree < fi
-
-    # per-pair step counts (clamped at 0 so fi at the window edge and the
-    # agree-all sentinels behave like ehh_area_batch's empty-suffix cases;
-    # the right sentinel clamps to the ACTIVE count, not the padded cap)
-    steps_r = jnp.maximum(
-        jnp.minimum(death_r, n_act).astype(jnp.float32) - fi - 1.0, 0.0)
-    steps_l = jnp.maximum(fi - 1.0 - death_l.astype(jnp.float32), 0.0)
-    steps = steps_r + steps_l
-
-    areas = []
-    upper = jnp.triu(jnp.ones((n, n), dtype=bool), k=1)
-    for ai, al in enumerate(alleles):
-        pairs = upper & carriers[ai][:, None] & carriers[ai][None, :]
-        rows = jnp.sum(jnp.where(pairs, steps, 0.0), axis=1)
-        areas.append(jnp.sum(rows) / denoms[ai])
-    return jnp.stack(areas), carr
 
 
 class EhhResult(NamedTuple):

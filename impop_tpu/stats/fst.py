@@ -92,8 +92,8 @@ def hudson_fst_direct_pairs(sim, present, masks_a, masks_b) -> FstResult:
     b = masks_b.astype(jnp.float32)
 
     def mm(x, m):
-        # HIGHEST: div carries (1-sim) values — the TPU default matmul
-        # is single-pass bf16 (r4 bisect: ~1e-3 relative error)
+        # HIGHEST: div carries (1-sim) values — a DEFAULT f32 dot may
+        # round its operands to TF32 (~1e-3 relative error)
         return jax.lax.dot_general(
             x, m, dimension_numbers=(((1,), (0,)), ((), ())),
             preferred_element_type=jnp.float32,

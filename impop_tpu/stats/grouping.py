@@ -15,9 +15,10 @@ The reference carries three distinct clustering semantics (SURVEY.md §3.5):
    Implemented in :func:`first_pair_winner`.
 
 3. **Transitive union-find closure** (af.py:21-44), linking every pair with
-   similarity >= threshold.  On TPU this becomes log-depth reachability via
-   boolean matrix squaring (:func:`label_components`) — connected components
-   as O(log N) MXU matmuls instead of a pointer-chasing loop.
+   similarity >= threshold.  On the device this becomes log-depth
+   reachability via boolean matrix squaring (:func:`label_components`) —
+   connected components as O(log N) matmuls instead of a pointer-chasing
+   loop.
 
 All functions are single-window, fixed-shape, jit/vmap friendly.
 """
@@ -80,23 +81,8 @@ def greedy_group(
     # elink[j, i]: j < i and linked — the "earlier neighbour" relation
     elink = link & (order[:, None] < order[None, :])
 
-    if jax.default_backend() not in ("cpu",) and n_cap % 128 == 0:
-        # single fused program on TPU (see greedy_group_panels)
-        from impop_tpu.ops.seedpeel import seed_peel_pallas
-
-        seed = seed_peel_pallas(
-            sim, present, member, member[None, :], threshold,
-            block=256 if n_cap % 256 == 0 else 128,
-        )[0]
-        cand = elink & seed[:, None]
-        min_seed = jnp.min(
-            jnp.where(cand, order[:, None], n_cap), axis=0
-        ).astype(jnp.int32)
-        gid = jnp.where(seed, order, min_seed)
-        return jnp.where(member, gid, n_cap)
-
     # the peeling rounds only need "∃ earlier neighbour j with flag[j]",
-    # which is a mask-vector product — express it as an MXU matvec instead
+    # which is a mask-vector product — express it as a matvec instead
     # of an [N, N] elementwise AND + reduction per round
     elink_f = elink.astype(jnp.float32)
 
@@ -167,26 +153,7 @@ def greedy_group_panels(
 
     pm = pmasks & member[None, :]                      # [P, N]
 
-    # --- seed determination -----------------------------------------------
-    # On TPU the whole recurrence runs as ONE fused Pallas program
-    # (ops/seedpeel.py): the XLA chunked loop below compiles to ~180 small
-    # kernels per 320-window batch whose dispatch overhead dominates
-    # (12.8 ms vs 2.3 ms fused on v5e).  Block sizes must be 128-multiples
-    # (lane-aligned dynamic VMEM scratch stores); 256 halves the
-    # sequential chunk round-trips (~5 us/window on the r4 profile).
-    if jax.default_backend() not in ("cpu",) and n_cap % 128 == 0:
-        from impop_tpu.ops.seedpeel import seed_peel_pallas
-
-        seed = seed_peel_pallas(sim, present, member, pmasks, threshold,
-                                block=256 if n_cap % 256 == 0 else 128)
-        # bf16 elink is exact here (0/1 entries, power-of-two weights,
-        # f32 accumulation) and halves the argmin einsum's [N, N] traffic;
-        # the CPU backend lacks bf16 dots, so the fallback keeps f32
-        return _gid_from_seeds(
-            seed, elink.astype(jnp.bfloat16), pm, order, n_cap
-        )
-
-    # --- XLA fallback: chunked scan over row order ------------------------
+    # --- seed determination: chunked scan over row order ------------------
     # The seed recurrence s_i = ¬∃ seed j<i with link(j,i) has sequential
     # depth up to the link-graph chain length (can be ~N on real data, so a
     # global converge-until-done peel is unbounded over expensive [P,N]@[N,N]
@@ -198,8 +165,7 @@ def greedy_group_panels(
     # decides every row whose earlier in-chunk neighbours are all decided.
     # Rounds = in-chunk dependency depth (2-4 on identity data, K worst
     # case), and each round costs two tiny [P,K]@[K,K] matmuls — replacing a
-    # statically-unrolled K-step scalar micro-loop that was latency-bound
-    # (measured 15 ms -> ~2 ms per 40-window batch on v5e).
+    # statically-unrolled K-step scalar micro-loop that was latency-bound.
     if n_cap % block != 0:
         # small/odd capacities (tests, dryruns) fall back to the largest
         # common divisor — correctness is block-size independent
@@ -264,9 +230,9 @@ def _gid_from_seeds(seed, elink_f, pm, order, n_cap):
     s[p,b,i] = sum_k seed*elink*2^(Kb-1-k); the smallest candidate k in the
     block is Kb-1-floor(log2 s), and floor(log2 s) is EXACT — s is an
     integer < 2^16 < 2^24, so it's the f32 exponent field, read with a
-    bitcast.  No [P,N,K] gathers (the previous two-level take_along_axis
-    formulation was the pipeline bottleneck: 10.1 ms of the 15.5 ms
-    fused step on v5e; this is elementwise + one matmul).
+    bitcast.  No [P,N,K] gathers: elementwise work + one matmul.  The
+    einsum's operands are 0/1 links and powers of two <= 2^15 with f32
+    accumulation, so it stays exact under TF32 or bf16 operand rounding.
     """
     p_count = pm.shape[0]
     kb = 16
@@ -276,8 +242,7 @@ def _gid_from_seeds(seed, elink_f, pm, order, n_cap):
     weights = jnp.asarray(
         np.exp2(np.arange(kb - 1, -1, -1, dtype=np.float64)), jnp.float32
     )                                                    # [Kb] 2^(Kb-1-k)
-    dtype = elink_f.dtype  # f32, or bf16 on TPU (exact: 0/1 links and
-    # power-of-two weights, f32 accumulation)
+    dtype = elink_f.dtype
     wseed = (
         seed.reshape(p_count, nb, kb).astype(dtype)
         * weights[None, None, :].astype(dtype)
@@ -305,9 +270,8 @@ def group_sizes(gid: jnp.ndarray, member: jnp.ndarray) -> jnp.ndarray:
     """sizes[s] = number of members whose group seed is row s (0 elsewhere).
 
     Scatter-free histogram: factor the bucket id as s = b·Kb + k and count
-    with one [Nb, N] @ [N, Kb] matmul of the two one-hot factors —
-    TPU scatter-adds serialise (the previous ``.at[gid].add`` formulation
-    cost 20.8 ms vs 1.0 ms for this at [320 windows, 15 panels, 512 rows]).
+    with one [Nb, N] @ [N, Kb] matmul of the two one-hot factors instead
+    of a serialising ``.at[gid].add`` scatter.
     The n_cap sentinel used for padding rows lands in bucket n_cap, which
     the final slice drops (and members always carry in-range gids).
     """
@@ -335,7 +299,7 @@ def rep_weights(gid: jnp.ndarray, member: jnp.ndarray) -> tuple[jnp.ndarray, jnp
     Returns (w [N] f32, n scalar f32) where w[s] = |group(s)| / n for each
     seed row s and 0 elsewhere.  The frequency-weighted pairwise sum
     Σ_{a<b} 2 (1-sim_ab) f_a f_b over group representatives then becomes the
-    quadratic form wᵀ((1-sim)⊙mask)w — the MXU formulation of pica2.py:125-145.
+    quadratic form wᵀ((1-sim)⊙mask)w — the matmul formulation of pica2.py:125-145.
     """
     sizes = group_sizes(gid, member)
     n = jnp.sum(member.astype(jnp.float32))
@@ -392,7 +356,7 @@ def first_pair_winner(
     # winner is: the first row i in its group with ANY valid column in the
     # target column-group, paired with that row's first valid column j in
     # the group.  Both "first" predicates are "no earlier same-group element
-    # with the property" counts — three [N, N] matmuls on the MXU (the
+    # with the property" counts — three [N, N] matmuls (the
     # previous formulation scatter-minned an (N+1)²-bucket segment table,
     # 2.6M serialised bucket updates per window at N=512).
     validf = valid.astype(jnp.float32)
@@ -439,8 +403,8 @@ def label_components(
 ) -> jnp.ndarray:
     """Connected-component labels via boolean matrix squaring.
 
-    TPU-native replacement for af.py's union-find (af.py:21-33): reachability
-    R = (A | I)^(2^k) computed with ⌈log2 N⌉ f32 matmuls on the MXU, then each
+    Matmul replacement for af.py's union-find (af.py:21-33): reachability
+    R = (A | I)^(2^k) computed with ⌈log2 N⌉ f32 matmuls, then each
     node's label is the smallest reachable row index.  Exactly the transitive
     closure the reference's union-find produces.
 

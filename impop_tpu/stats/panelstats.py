@@ -5,8 +5,8 @@ One window's similarity matrix serves every estimator of the fused scan
 (the 3-π Fst numerators, run_fst_impg.sh:184-205), Hudson direct Fst for
 each panel pair (h-fst.py semantics), and the group-pair bookkeeping π
 logging needs.  All masked reductions collapse into two stacked matmuls
-computed by ops/panelquad.py (operands built in-register on TPU), after a
-single shared grouping pass (ops/seedpeel.py).
+(ops/panelquad.py) after a single shared grouping pass
+(stats/grouping.greedy_group_panels).
 
 Semantics are identical to composing stats.pi.pi_grouped_panels +
 stats.fst.hudson_fst_direct_pairs — asserted by tests/test_panelstats.py.
@@ -19,6 +19,7 @@ from typing import NamedTuple
 import jax
 import jax.numpy as jnp
 
+from impop_tpu.ops.panelquad import masked_pair_sums_xla
 from impop_tpu.stats.fst import FstResult, _assemble
 from impop_tpu.stats.grouping import greedy_group_panels, group_sizes
 
@@ -81,16 +82,11 @@ class PanelStats(NamedTuple):
                                 # re-run the exact path when set (cli scan)
 
 
-def _use_pallas(n_cap: int) -> bool:
-    return jax.default_backend() not in ("cpu",) and n_cap % 128 == 0
-
-
 def panel_mask_stack(pmasks, member, pair_a, pair_b, pairs_disjoint):
     """The mask stack one window's shared grouping pass runs over:
     panels, pair unions and (when overlap stripping can change them) both
-    stripped Hudson sides.  Shared between fused_panel_stats and the
-    fully-fused kernel path (ops/idgroup.py) so both group the exact same
-    masks.  Returns (all_masks [R, N], mask_a [Q, N], mask_b [Q, N])."""
+    stripped Hudson sides.  Returns (all_masks [R, N], mask_a [Q, N],
+    mask_b [Q, N])."""
     mask_a = pmasks[pair_a] & member[None, :]
     mask_b = pmasks[pair_b] & member[None, :]
     if not pairs_disjoint:
@@ -123,13 +119,12 @@ def fused_panel_stats(
     representatives: within-population diversity and cross-population Dxy
     are (bi)linear forms of group-frequency weight vectors concentrated on
     group seeds — two extra rows in the same stacked reduction, instead of
-    per-pair winner searches (3 [N, N] matmuls per pair side, which
-    measured a 40x headline regression on v5e).  hud.py's representative
-    pair for groups (a, b) is the FIRST present pair scanning sorted
-    members (hud.py:88-98), whose first candidate is exactly (seed_a,
-    seed_b) — so this is bit-identical to hud.py whenever every group-seed
-    pair has data, which allele-derived identity matrices guarantee for
-    coverage-overlapping pairs.  The exact any-missing-pair fallback lives
+    per-pair winner searches (3 [N, N] matmuls per pair side).  hud.py's
+    representative pair for groups (a, b) is the FIRST present pair
+    scanning sorted members (hud.py:88-98), whose first candidate is
+    exactly (seed_a, seed_b) — so this is bit-identical to hud.py whenever
+    every group-seed pair has data, which allele-derived identity matrices
+    guarantee for coverage-overlapping pairs.  The exact any-missing-pair fallback lives
     in stats/fst.hudson_fst_grouped_pairs (the ``hud`` CLI / TSV path).
 
     Args:
@@ -145,8 +140,7 @@ def fused_panel_stats(
         extra masks in the grouping pass.  Callers verify host-side
         (the built panel masks are host data).
       gid: optional precomputed [R, N] group ids over panel_mask_stack's
-        mask order (the fully-fused kernel path, fused_window_stats) —
-        skips the grouping pass here.
+        mask order — skips the grouping pass here.
     """
     n_cap = member.shape[0]
     p_count = pmasks.shape[0]
@@ -161,8 +155,9 @@ def fused_panel_stats(
     pq = p_count + q_count
 
     if gid is None:
-        gid = greedy_group_panels(sim, present, member, all_masks,
-                                  threshold)
+        with jax.named_scope("grouping"):
+            gid = greedy_group_panels(sim, present, member, all_masks,
+                                      threshold)
     pm = all_masks & member[None, :]
     n_all = jnp.sum(pm.astype(jnp.float32), axis=1)
     sizes = jax.vmap(group_sizes)(gid, pm)
@@ -200,8 +195,7 @@ def fused_panel_stats(
     # The reduction is LINEAR in the weight rows, so with disjoint pairs
     # (wga == w[pair_a]) the grouped-Hudson rows are exact copies of panel
     # rows already in the stack — recover them by row-take after the matmul
-    # instead of recomputing (20 of 55 rows dropped; measured 12% headline
-    # recovery on v5e).
+    # instead of recomputing (20 of 55 rows dropped at 5 panels).
     if pairs_disjoint:
         wd = jnp.concatenate([w, a_f, b_f], axis=0)            # [P+3Q, N]
         wp = jnp.concatenate([rep_f, a_f, b_f], axis=0)
@@ -209,13 +203,7 @@ def fused_panel_stats(
         wd = jnp.concatenate([w, a_f, b_f, wga, wgb], axis=0)  # [P+5Q, N]
         wp = jnp.concatenate([rep_f, a_f, b_f, wga, wgb], axis=0)
 
-    if _use_pallas(n_cap):
-        from impop_tpu.ops.panelquad import masked_pair_sums_pallas
-
-        yd, yp = masked_pair_sums_pallas(sim, present, wd, wp)
-    else:
-        from impop_tpu.ops.panelquad import masked_pair_sums_xla
-
+    with jax.named_scope("panel_reduce"):
         yd, yp = masked_pair_sums_xla(sim, present, wd, wp)
 
     def rowdot(x, y):
@@ -284,65 +272,6 @@ def fused_panel_stats(
     )
 
 
-def _static_pairs(pair_a, pair_b):
-    """Concrete pair index tuples, or None if the pair arrays are traced
-    (the fully-fused kernel needs them at trace time for its static row
-    gathers; every production caller closes over concrete arrays)."""
-    import numpy as np
-    from jax.core import Tracer
-
-    if isinstance(pair_a, Tracer) or isinstance(pair_b, Tracer):
-        return None
-    return (tuple(int(i) for i in np.asarray(pair_a)),
-            tuple(int(i) for i in np.asarray(pair_b)))
-
-
-def _assemble_from_kernel(out, pq: int, q: int, pair_a_st, pair_b_st,
-                          pairs_disjoint: bool) -> PanelStats:
-    """fused_panel_stats' epilogue on ops/windowstat.py's raw row-dots —
-    identical formulas on [R]-sized vectors (asserted by
-    tests/test_windowstat.py against the composed path)."""
-    n = out["n"][:pq]
-    quad = out["quad"][:pq]
-    pairs_used = jnp.round(out["pairs_used2"] / 2.0).astype(jnp.int32)
-    num_groups = jnp.round(out["num_groups"][:pq]).astype(jnp.int32)
-    pairs_total = (num_groups * (num_groups - 1)) // 2
-    pi = jnp.where(
-        (n > 1) & (pairs_used > 0), n / jnp.maximum(n - 1.0, 1.0) * quad,
-        0.0)
-
-    sum_aa, cnt_aa = out["sum_aa"] * 0.5, out["cnt_aa"] * 0.5
-    sum_bb, cnt_bb = out["sum_bb"] * 0.5, out["cnt_bb"] * 0.5
-    sum_ab, cnt_ab = out["sum_ab"], out["cnt_ab"]
-    pi_a = jnp.where(cnt_aa > 0, sum_aa / jnp.maximum(cnt_aa, 1.0), 0.0)
-    pi_b = jnp.where(cnt_bb > 0, sum_bb / jnp.maximum(cnt_bb, 1.0), 0.0)
-    dxy = jnp.where(cnt_ab > 0, sum_ab / jnp.maximum(cnt_ab, 1.0), 0.0)
-
-    # grouped-Hudson within forms are quad rows (the reduction is linear
-    # in the weight rows — ops/windowstat.py stage-5 note): panel rows
-    # when pairs are disjoint, stripped-side rows otherwise
-    if pairs_disjoint:
-        ia = jnp.asarray(pair_a_st)
-        ib = jnp.asarray(pair_b_st)
-    else:
-        ia = jnp.arange(pq, pq + q)
-        ib = jnp.arange(pq + q, pq + 2 * q)
-    n_a = out["n"][ia]
-    n_b = out["n"][ib]
-    bessel_a = jnp.where(n_a > 1, n_a / jnp.maximum(n_a - 1.0, 1.0), 0.0)
-    bessel_b = jnp.where(n_b > 1, n_b / jnp.maximum(n_b - 1.0, 1.0), 0.0)
-    gpi_a = out["quad"][ia] * bessel_a
-    gpi_b = out["quad"][ib] * bessel_b
-    gdxy = out["gdxy"]
-
-    return PanelStats(
-        pi, n, num_groups, pairs_used, pairs_total - pairs_used,
-        _assemble(pi_a, pi_b, dxy),
-        _assemble(gpi_a, gpi_b, gdxy),
-        out["seed_risk"] > 0.5,
-    )
-
-
 def fused_window_stats(
     geno: jnp.ndarray,
     member: jnp.ndarray,
@@ -357,68 +286,23 @@ def fused_window_stats(
 ) -> tuple:
     """One window, allele tile in, every panel statistic out.
 
-    On TPU (biallelic tiles, unit weights, lane-aligned caps, short
-    windows) the fused Mosaic paths engage:
-
-    - ``return_matrices=False`` (the scan/bench hot path): the ENTIRE
-      per-window program — identity, shared grouping, group-size weights,
-      the stacked HIGHEST-precision panel reduction, Hudson row-dots,
-      S and seed_risk — runs as ONE kernel with nothing of shape [N, N]
-      ever crossing HBM (ops/windowstat.py).  Returns (None, None, s,
-      PanelStats).
-    - ``return_matrices=True``: identity + grouping + gid + S as one
-      kernel (ops/idgroup.py, measured 9.9 vs 21.7 us/window composed,
-      r4), the tail in XLA; sim/present are returned.
-
-    Everywhere else it composes identity_from_alleles +
-    greedy_group_panels + segregating_sites with identical semantics
-    (asserted on-chip: sim/present/gid/S all bit-identical).
+    Composes identity_from_alleles + greedy_group_panels (inside
+    fused_panel_stats) + segregating_sites.  XLA fuses the elementwise
+    work around the [N, N] matmuls; nothing here is backend-specific.
+    ``return_matrices=False`` (the scan/bench hot path) returns None for
+    sim/present so that no caller comes to depend on them.
 
     Returns (sim, present, s_count f32, PanelStats).
     """
     from impop_tpu.stats.allele import (identity_from_alleles,
                                         segregating_sites)
 
-    n_cap, s_cap = geno.shape
-    use_fused = (
-        jax.default_backend() not in ("cpu",)
-        and n_cap % 128 == 0
-        and s_cap % 128 == 0
-        and s_cap <= 2048   # the operand column stays VMEM-resident
-    )
-    q_count = int(pair_a.shape[0])
-    if use_fused and not return_matrices and q_count >= 1:
-        st = _static_pairs(pair_a, pair_b)
-        if st is not None:
-            from impop_tpu.ops.windowstat import window_stats_pallas
-
-            all_masks, mask_a, mask_b = panel_mask_stack(
-                pmasks, member, pair_a, pair_b, pairs_disjoint)
-            pq = pmasks.shape[0] + q_count
-            # widest dividing chunk wins: ONE peel chunk at 512 beats
-            # two 256 chunks (8.2 vs 8.6-9.3 us/window, r5 A/B)
-            block = next(b for b in (512, 256, 128) if n_cap % b == 0)
-            out = window_stats_pallas(
-                geno, member, site_mask, all_masks, mask_a, mask_b,
-                threshold, length, st[0], st[1], pairs_disjoint,
-                block=block)
-            res = _assemble_from_kernel(out, pq, q_count, st[0], st[1],
-                                        pairs_disjoint)
-            return None, None, out["s"], res
-    if use_fused:
-        from impop_tpu.ops.idgroup import identity_group_pallas
-
-        all_masks, _, _ = panel_mask_stack(pmasks, member, pair_a, pair_b,
-                                           pairs_disjoint)
-        sim, present, gid, s_count = identity_group_pallas(
-            geno, member, site_mask, all_masks, threshold, length,
-            block=256 if n_cap % 256 == 0 else 128)
-        res = fused_panel_stats(sim, present, member, pmasks, pair_a,
-                                pair_b, threshold,
-                                pairs_disjoint=pairs_disjoint, gid=gid)
-        return sim, present, s_count, res
-    sim, present = identity_from_alleles(geno, member, site_mask, length)
-    s_count = segregating_sites(geno, member, site_mask).astype(jnp.float32)
+    with jax.named_scope("identity"):
+        sim, present = identity_from_alleles(geno, member, site_mask, length)
+        s_count = segregating_sites(geno, member,
+                                    site_mask).astype(jnp.float32)
     res = fused_panel_stats(sim, present, member, pmasks, pair_a, pair_b,
                             threshold, pairs_disjoint=pairs_disjoint)
+    if not return_matrices:
+        return None, None, s_count, res
     return sim, present, s_count, res

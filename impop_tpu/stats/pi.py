@@ -12,7 +12,7 @@ grouped semantics in the reference:
   the first *present* element pair scanning sorted members.
 
 Both reduce to the quadratic form wᵀ((1-sim)⊙mask)w over representative
-weights, which XLA maps onto the MXU; grouping itself is a fori_loop of
+weights, which XLA maps onto matmuls; grouping itself is a fori_loop of
 vectorised row updates (see stats/grouping.py).
 """
 from __future__ import annotations
@@ -62,8 +62,8 @@ def pi_grouped(sim, present, member, threshold) -> PiResult:
     pair_mask = present & offdiag
     contrib = jnp.where(pair_mask, 1.0 - sim, 0.0)
     # Σ_{a≠b} (1-s) w_a w_b  ==  Σ_{a<b} 2 (1-s) w_a w_b   (symmetry)
-    # HIGHEST: contrib carries (1-sim) values; TPU default matmul is
-    # single-pass bf16 (r4 bisect: ~1e-3 relative pi error)
+    # HIGHEST: contrib carries (1-sim) values; a DEFAULT f32 dot may
+    # round its operands to TF32 (~1e-3 relative pi error)
     quad = jnp.dot(w, jnp.dot(contrib, w, preferred_element_type=jnp.float32,
                               precision=jax.lax.Precision.HIGHEST),
                    precision=jax.lax.Precision.HIGHEST)

@@ -2,7 +2,7 @@
 
 Every estimator in :mod:`impop_tpu.stats` consumes a :class:`SimTile`: a
 padded, fixed-shape [N, N] similarity matrix with masks.  Fixed shapes are
-what make the estimators jit/vmap-able and MXU-friendly — ragged per-window
+what make the estimators jit/vmap-able and matmul-friendly — ragged per-window
 haplotype sets (the reference's dict-of-pairs, pica2.py:29) become masked
 rectangles.
 """

@@ -1,7 +1,7 @@
 """Pure-Python oracle implementing the reference's estimator semantics.
 
 This is an independent reimplementation (not a copy) of the math in the
-reference scripts, used to validate the TPU kernels:
+reference scripts, used to validate the device estimators:
 
 - pica2.py:60-169   -> :func:`pica2_pi`          (greedy grouping π)
 - h-fst.py:130-171  -> :func:`direct_diversity`  (mean pairwise 1-sim)
@@ -259,3 +259,30 @@ def union_find_clusters(
     for s in samples:
         comps.setdefault(find(s), []).append(s)
     return sorted(comps.values(), key=lambda c: (-len(c), sorted(c)))
+
+
+def ehh_areas(hap, focal: int, alleles=(0, 1)):
+    """EHH decay areas around a focal column (wip/ehhgfa.py:47-69).
+
+    ``hap`` is an [n, s] 0/1 haplotype matrix of active sites only.  For
+    each allele, carriers are the rows whose call at ``focal`` is that
+    allele; a carrier pair contributes the number of consecutive sites,
+    moving away from ``focal`` on each side, on which the two agree (the
+    EHH curve summed over sites, ehh2.py:72-86), and the total is divided
+    by C(n_c, 2) (at least 1).  Returns (areas [A] f64, carriers [A]).
+    """
+    import numpy as np
+
+    hap = np.asarray(hap)
+    areas, carriers = [], []
+    for al in alleles:
+        c = hap[hap[:, focal] == al]
+        n_c = len(c)
+        total = 0
+        for side in (c[:, focal + 1:], c[:, :focal][:, ::-1]):
+            agree = side[:, None, :] == side[None, :, :]
+            run = np.logical_and.accumulate(agree, axis=2).sum(axis=2)
+            total += int(np.triu(run, 1).sum())
+        areas.append(total / max(n_c * (n_c - 1) / 2.0, 1.0))
+        carriers.append(n_c)
+    return np.asarray(areas), np.asarray(carriers)

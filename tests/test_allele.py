@@ -9,7 +9,10 @@ from impop_tpu.stats.allele import (
     allele_frequency_spectrum,
     allele_window_stats,
     identity_from_alleles,
+    identity_route,
     pairwise_diff,
+    pairwise_identity_f32,
+    pairwise_identity_int8,
     segregating_sites,
 )
 from impop_tpu.stats.api import pi_grouped_jit
@@ -125,3 +128,65 @@ def test_allele_window_stats_bundle(rng):
     diffs = [np.sum(g[i] != g[j]) for i in range(n) for j in range(i + 1, n)]
     np.testing.assert_allclose(float(stats.pi_direct), np.mean(diffs), rtol=1e-6)
     assert int(stats.n) == n
+
+
+@pytest.mark.parametrize("platform", ["cpu", "gpu", "rocm", "METAL"])
+@pytest.mark.parametrize("has_weights", [False, True])
+def test_identity_route(platform, has_weights):
+    """Weighted tiles and every platform but the GPU take the f32 reference
+    route; unit-weight tiles on the GPU take the int8 z-Gram (the winner at
+    both window lengths timed on an H100, PERF.md)."""
+    got = identity_route(platform, has_weights)
+    if platform == "gpu" and not has_weights:
+        assert got == "int8"
+    else:
+        assert got == "f32"
+
+
+def test_identity_from_alleles_routes_gpu_unit_weights_to_int8(
+        rng, monkeypatch):
+    """identity_from_alleles asks identity_route with the backend and
+    whether weights were given, and runs the route it names."""
+    from impop_tpu.stats import allele
+
+    calls = []
+
+    def fake_route(platform, has_weights):
+        calls.append((platform, has_weights))
+        return "int8"
+
+    monkeypatch.setattr(allele, "identity_route", fake_route)
+    monkeypatch.setattr(allele, "pairwise_identity_int8",
+                        lambda *a: ("int8", a))
+    geno = jnp.asarray(rng.integers(0, 2, size=(8, 16)).astype(np.int8))
+    member = jnp.ones(8, bool)
+    smask = jnp.ones(16, bool)
+    got = allele.identity_from_alleles(geno, member, smask,
+                                       jnp.float32(100.0))
+    assert got[0] == "int8"
+    assert calls == [(jax.default_backend(), False)]
+    # multiallelic codes never ask: only the f32 route handles them
+    allele.identity_from_alleles(geno, member, smask, jnp.float32(100.0),
+                                 num_alleles=3)
+    assert len(calls) == 1
+
+
+def test_int8_identity_bit_equal_to_f32_route(rng):
+    """The int8 z-Gram gives sim/present bit-identical to the f32
+    pairwise_diff route (integer counts are exact in both formulations),
+    including padding rows, masked sites and missing calls."""
+    n, s = 48, 300
+    geno = rng.integers(0, 2, size=(n, s)).astype(np.int8)
+    geno[rng.random((n, s)) < 0.1] = -1
+    geno[-5:] = -1
+    member = np.ones(n, bool)
+    member[-5:] = False
+    member[3] = True
+    geno[3] = -1                      # a member with zero valid calls
+    smask = rng.random(s) < 0.9
+    args = tuple(map(jnp.asarray, (geno, member, smask))) + (
+        jnp.float32(5000.0),)
+    sim_f, pres_f = jax.jit(pairwise_identity_f32)(*args)
+    sim_z, pres_z = jax.jit(pairwise_identity_int8)(*args)
+    np.testing.assert_array_equal(np.asarray(pres_z), np.asarray(pres_f))
+    np.testing.assert_array_equal(np.asarray(sim_z), np.asarray(sim_f))

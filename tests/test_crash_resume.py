@@ -52,7 +52,7 @@ def test_sigkill_mid_scan_then_resume(tmp_path):
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
         _argv(tmp_path, sim, bed, out_crash, journal),
     )
-    env = dict(os.environ, IMPOP_TPU_PLATFORM="cpu")
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
     proc = subprocess.Popen([sys.executable, "-c", code], env=env,
                             stdout=subprocess.DEVNULL,
                             stderr=subprocess.DEVNULL)

@@ -66,7 +66,6 @@ def test_two_process_scan_and_merge(dataset, tmp_path):
         env = dict(
             os.environ,
             JAX_PLATFORMS="cpu",
-            IMPOP_TPU_PLATFORM="cpu",
             JAX_COORDINATOR=f"127.0.0.1:{port}",
             JAX_NUM_PROCESSES="2",
             JAX_PROCESS_ID=str(pid),

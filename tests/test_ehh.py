@@ -3,7 +3,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from impop_tpu.stats.ehh import ehh_bidirectional, ehh_decay_from_focal, ehh_forward
+from impop_tpu.stats.ehh import (ehh_area_dynamic, ehh_bidirectional,
+                                 ehh_decay_from_focal, ehh_forward)
 
 
 def oracle_ehh(hap: np.ndarray) -> np.ndarray:
@@ -295,46 +296,26 @@ def test_ehh_area_dynamic_matches_static_batch(rng):
     np.testing.assert_array_equal(np.asarray(c2), np.asarray(c_dy))
 
 
-def test_ehh_area_pallas_matches_xla(rng):
-    """ops/ehhdeath.py (VMEM-resident death/steps/pair sums) must equal
-    the XLA block-loop path bit-for-bit (step sums are integer-exact in
-    f32) — the `scan --ehh` TPU fast path relies on it."""
-    import jax.numpy as jnp
-    from jax.experimental.pallas import tpu as pltpu
+def test_ehh_area_dynamic_at_production_cap_matches_numpy_reference(rng):
+    """ehh_area_dynamic at the scan's cap of 512 rows and 128 site columns
+    (466 haplotypes, masked columns, a mid-window focal) against the
+    numpy reference of the area semantics (oracle.ehh_areas)."""
+    import oracle
 
-    from impop_tpu.ops.ehhdeath import ehh_area_pallas
-    from impop_tpu.stats.ehh import ehh_area_dynamic
-
-    n, s = 128, 128
-    geno = (rng.random((n, s)) < 0.4).astype(np.int8)
-    member = rng.random(n) < 0.85
-    smask = rng.random(s) < 0.9
-    for focal in (int(np.nonzero(smask)[0][0]), s // 2,
-                  int(np.nonzero(smask)[0][-1])):
-        if not smask[focal]:
-            continue
-        # XLA reference (CPU backend -> takes the block-loop path)
-        a_ref, c_ref = ehh_area_dynamic(
-            jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
-            focal, alleles=(0, 1))
-        # kernel, interpret mode, on the same compacted operands
-        act = smask.astype(np.float64)
-        rank = int(act[:focal].sum())
-        n_act = int(act.sum())
-        xc = np.zeros((n, s), np.float32)
-        xc[:, :n_act] = np.where(smask, geno, 0)[:, smask]
-        call = geno[:, focal]
-        carr = np.stack([(member & (call == al)).astype(np.float32)
-                         for al in (0, 1)])
-        with pltpu.force_tpu_interpret_mode():
-            sums = np.asarray(ehh_area_pallas(
-                jnp.asarray(xc), jnp.asarray(carr),
-                jnp.float32(rank), jnp.float32(n_act)))
-        for ai in range(2):
-            nc = carr[ai].sum()
-            denom = max(nc * (nc - 1) / 2.0, 1.0)
-            np.testing.assert_allclose(
-                sums[ai] / denom, np.asarray(a_ref)[ai], rtol=1e-6,
-                err_msg=f"focal={focal} allele={ai}")
-        np.testing.assert_array_equal(
-            np.asarray(c_ref), carr.sum(axis=1).astype(np.int32))
+    n_cap, n, s = 512, 466, 128
+    classes = rng.integers(0, 2, size=(12, s)).astype(np.int8)
+    geno = classes[rng.integers(0, 12, size=n_cap)]
+    geno = np.where(rng.random((n_cap, s)) < 0.02, 1 - geno, geno)
+    geno = geno.astype(np.int8)
+    member = np.zeros(n_cap, bool)
+    member[:n] = True
+    smask = rng.random(s) < 0.85
+    focal = int(np.nonzero(smask)[0][40])
+    area, carr = jax.jit(
+        lambda g, m, sm, f: ehh_area_dynamic(g, m, sm, f, alleles=(0, 1)))(
+        jnp.asarray(geno), jnp.asarray(member), jnp.asarray(smask),
+        jnp.int32(focal))
+    hap = geno[:n][:, smask]
+    want_area, want_carr = oracle.ehh_areas(hap, int(smask[:focal].sum()))
+    np.testing.assert_array_equal(np.asarray(carr), want_carr)
+    np.testing.assert_allclose(np.asarray(area), want_area, rtol=1e-6)

@@ -152,7 +152,7 @@ def test_cpp_plain_gzip_fasta(tmp_path):
 
 
 def test_extract_to_stats_end_to_end(tmp_path):
-    """Planted SNPs flow through extraction into the TPU S/pi statistics."""
+    """Planted SNPs flow through extraction into the device S/pi statistics."""
     import jax
 
     from impop_tpu.stats.allele import segregating_sites

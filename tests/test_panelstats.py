@@ -1,7 +1,6 @@
 """fused_panel_stats == pi_grouped_panels + hudson_fst_direct_pairs."""
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.pallas import tpu as pltpu
 
 from impop_tpu.stats.fst import hudson_fst_direct_pairs
 from impop_tpu.stats.panelstats import fused_panel_stats
@@ -113,28 +112,43 @@ def test_pairs_disjoint_fast_path_equivalence(rng):
                                rtol=1e-6, atol=1e-9)
 
 
-def test_panelquad_pallas_matches_xla(rng):
-    from impop_tpu.ops.panelquad import (masked_pair_sums_pallas,
-                                         masked_pair_sums_xla)
+def _allele_window(rng, n=256, s=128, frac_missing=0.05):
+    cls = rng.integers(0, 6, size=n)
+    base = rng.integers(0, 2, size=(6, s)).astype(np.int8)
+    geno = base[cls]
+    geno = np.where(rng.random((n, s)) < 0.01, 1 - geno, geno).astype(np.int8)
+    geno[rng.random((n, s)) < frac_missing] = -1
+    geno[-13:] = -1
+    member = np.ones(n, bool)
+    member[-13:] = False
+    smask = np.ones(s, bool)
+    smask[-9:] = False
+    return geno, member, smask
 
-    n, r = 256, 9
-    sim = rng.random((n, n)).astype(np.float32)
-    sim = (sim + sim.T) / 2
-    present = rng.random((n, n)) < 0.8
-    present = present & present.T
-    wd = rng.random((r, n)).astype(np.float32)
-    wp = rng.random((r, n)).astype(np.float32)
-    with pltpu.force_tpu_interpret_mode():
-        yd_p, yp_p = masked_pair_sums_pallas(
-            jnp.asarray(sim), jnp.asarray(present), jnp.asarray(wd),
-            jnp.asarray(wp), block=128)
-    yd_x, yp_x = masked_pair_sums_xla(
-        jnp.asarray(sim), jnp.asarray(present), jnp.asarray(wd),
-        jnp.asarray(wp))
-    np.testing.assert_allclose(np.asarray(yd_p), np.asarray(yd_x),
-                               rtol=1e-5, atol=1e-5)
-    np.testing.assert_allclose(np.asarray(yp_p), np.asarray(yp_x),
-                               rtol=1e-5, atol=1e-5)
+
+def test_fused_window_stats_without_matrices_matches_with(rng):
+    """return_matrices=False (the scan/bench hot path) drops sim/present
+    and must give the same statistics and S as return_matrices=True."""
+    from impop_tpu.stats.panelstats import fused_window_stats
+
+    geno, member, smask = _allele_window(rng)
+    pmasks = np.stack([member & (np.arange(256) % 2 == 0),
+                       member & (np.arange(256) % 2 == 1)])
+    a = fused_window_stats(jnp.asarray(geno), jnp.asarray(member),
+                           jnp.asarray(smask), jnp.float32(5000.0),
+                           jnp.asarray(pmasks), jnp.asarray((0,)),
+                           jnp.asarray((1,)), jnp.float32(0.9995),
+                           pairs_disjoint=True, return_matrices=False)
+    b = fused_window_stats(jnp.asarray(geno), jnp.asarray(member),
+                           jnp.asarray(smask), jnp.float32(5000.0),
+                           jnp.asarray(pmasks), jnp.asarray((0,)),
+                           jnp.asarray((1,)), jnp.float32(0.9995),
+                           pairs_disjoint=True, return_matrices=True)
+    assert a[0] is None and a[1] is None
+    assert b[0].shape == (256, 256)
+    np.testing.assert_allclose(np.asarray(a[3].pi), np.asarray(b[3].pi),
+                               rtol=1e-6)
+    assert float(a[2]) == float(b[2])
 
 
 def test_seed_pair_invariant_guard_warns_on_missing_data(monkeypatch):

@@ -1,7 +1,7 @@
 """Fused scan wire-format roundtrip: pack_scan_batch (host) must invert
 exactly through the device-side unpack prologue of the scan step
 (cli._scan_step).  The scan ships ONE uint8 buffer per batch through the
-host->device tunnel (doc/architecture.md "End-to-end scan transfer
+host-to-device transfer (doc/architecture.md "End-to-end scan transfer
 rules"); a silent bit-order or offset mismatch would corrupt every
 statistic downstream, so the decode is pinned here cell-for-cell.
 """
